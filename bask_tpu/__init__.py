@@ -1,10 +1,10 @@
-"""bask-tpu: TPU-native fully-Bayesian Bayesian optimization in JAX.
+"""bask-tpu: fully-Bayesian Bayesian optimization in JAX, on accelerators.
 
 A from-scratch rebuild of the capabilities of kiudee/bayes-skopt ("bask"):
 fully-Bayesian Gaussian-process regression (on-device MCMC over kernel
 hyperparameters), marginalized acquisition functions, an ask/tell
-Optimizer, and a sklearn-compatible BayesSearchCV — designed TPU-first
-(vmapped walker ensembles, fused acquisition passes, shardable over a
+Optimizer, and a sklearn-compatible BayesSearchCV — designed for an
+accelerator (vmapped walker ensembles, fused acquisition passes, shardable over a
 ``jax.sharding.Mesh``).
 
 Public API mirrors the reference package exports

@@ -1,6 +1,6 @@
 """Functional Gaussian-process core (GPML Algorithm 2.1) on padded data.
 
-This is the TPU-native replacement for the sklearn/skopt
+This is the JAX replacement for the sklearn/skopt
 ``GaussianProcessRegressor`` machinery the reference inherits
 (``bask/bayesgpr.py:18`` subclasses skopt's GPR). Instead of a mutable
 estimator, the model is a pair of immutable structs:
@@ -34,7 +34,6 @@ __all__ = [
     "make_data",
     "posterior",
     "posterior_and_invs",
-    "fused_marginal_grams",
     "log_marginal_likelihood",
     "predict",
     "predict_mean",
@@ -85,79 +84,19 @@ def posterior(kernel, theta, data: GPData) -> GPPosterior:
     return GPPosterior(theta=theta, L=L, alpha_dual=alpha_dual)
 
 
-def fused_marginal_grams(kernel, rows, data: GPData, n_warp: int):
-    """(S, n_pad, n_pad) masked grams for a batch of hyperposterior rows
-    via ONE fused Pallas program — or ``None`` when the fast path does
-    not apply (non-f32 data, non-64-multiple bucket, CPU/GPU backend, or
-    a kernel outside the fused ``Const*(Matern|RBF)[+White]`` family).
-
-    The marginalized paths (acquisition per-draw predictions, marginal
-    ``sample_y``) vmap a per-row ``masked_gram``, which XLA lowers to a
-    generic batched gram with several HBM-materialized intermediates;
-    this precompute routes them through the same fused kernel the MCMC
-    chain uses. Assumes the library-wide prefix-mask padding convention
-    (real points first), exactly like the chain's batched LML.
-
-    With warping (``n_warp > 0``) the rows carry per-draw warp
-    parameters: the per-draw warped ``X`` feeds the kernel's per-walker
-    X mode. Callers still re-warp inside their per-draw body for the
-    cross-gram — that VPU recompute is negligible next to the gram.
-
-    Sharded-candidate note: under ``shard_candidates`` GSPMD partitions
-    the downstream cross-gram/predict over the candidate axis, while
-    this precompute's operands (rows, training X) are replicated — the
-    pallas custom call therefore stays replicated per device, the same
-    redundancy the vmapped per-draw gram had (no sharded operand feeds
-    the kernel, unlike the walker-sharded chain, which needs the
-    explicit shard_map in ``batched_lml``).
-    """
-    from ..ops import pallas_gram as _pg
-    from ..ops.fast_cholesky import is_tpu_like_backend
-
-    n_pad = data.X.shape[-2]
-    if not (
-        data.X.dtype == jnp.float32
-        and n_pad % 64 == 0
-        and is_tpu_like_backend()
-    ):
-        return None
-    spec = _pg.match_fusable(kernel)
-    if spec is None:
-        return None
-    n_real = jnp.sum(data.mask)
-    if n_warp:
-        from . import warping as wp
-
-        def _one(x):
-            theta_gp, la, lb = wp.split_warp_params(x, n_warp)
-            return theta_gp, wp.warp(data.X, la, lb)
-
-        th_gp, Xw = jax.vmap(_one)(rows)
-        return _pg.fused_masked_gram_batch(
-            spec, th_gp, Xw, data.alpha_diag, n_real
-        )
-    return _pg.fused_masked_gram_batch(
-        spec, rows, data.X, data.alpha_diag, n_real
-    )
-
-
-def posterior_and_invs(kernel, theta, data: GPData, Kp=None):
+def posterior_and_invs(kernel, theta, data: GPData):
     """Like :func:`posterior`, additionally returning the cached
     diagonal-block inverses of the factor when the f32 blocked fast path
     applies (else ``None``).
 
     The inverses come free from ``block_cholesky`` and let
     :func:`predict` replace XLA's latency-bound triangular substitution
-    with pure MXU matmuls — the marginalized-acquisition hot path, where
+    with batched matmuls — the marginalized-acquisition hot path, where
     each hyperposterior draw solves against hundreds of candidates.
-
-    ``Kp``: optional precomputed masked gram for this theta (one row of
-    :func:`fused_marginal_grams`); built here when ``None``.
     """
     from ..ops import linalg as _lin
 
-    if Kp is None:
-        Kp = masked_gram(kernel, theta, data.X, data.alpha_diag, data.mask)
+    Kp = masked_gram(kernel, theta, data.X, data.alpha_diag, data.mask)
     if not _lin._use_fast_path(Kp):
         L = masked_cholesky(Kp)
         return GPPosterior(theta=theta, L=L, alpha_dual=cho_solve_masked(L, data.y)), None
@@ -227,12 +166,12 @@ def predict(
 
     ``invs``: optional cached diagonal-block inverses from
     :func:`posterior_and_invs` — routes the cross-gram solve through
-    MXU matmuls instead of XLA's substitution. (Computing fresh inverses
+    batched matmuls instead of XLA's substitution. (Computing fresh inverses
     just for this solve measured slower — only pass cached ones.)
     """
     Ks = _cross(kernel, theta_diag, Xq, data)
-    # full-f32 matvec: alpha_dual = K^-1 y is oscillatory, bf16 passes
-    # lose digits to cancellation (CLAUDE.md rule 5)
+    # full-f32 matvec: alpha_dual = K^-1 y is oscillatory, a reduced-
+    # precision (TF32) product loses digits to cancellation
     mean = data.y_mean + data.y_std * jnp.matmul(
         Ks, post.alpha_dual, precision=jax.lax.Precision.HIGHEST
     )
@@ -292,4 +231,6 @@ def eigh_draws(mean, cov, key, n_samples):
     evals, evecs = jnp.linalg.eigh(cov)
     factor = evecs * jnp.sqrt(jnp.maximum(evals, 0.0))[None, :]
     z = jax.random.normal(key, (mean.shape[0], n_samples), dtype=cov.dtype)
-    return mean[:, None] + factor @ z
+    return mean[:, None] + jnp.matmul(
+        factor, z, precision=jax.lax.Precision.HIGHEST
+    )

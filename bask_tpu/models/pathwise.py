@@ -10,7 +10,7 @@ Process Posteriors", ICML 2020) decouples the draw:
 
 where f0 is a weight-space prior sample over M random Fourier features
 and eps ~ N(0, noise). Every term is a matmul, so evaluating S samples at
-65k+ candidates is MXU work with no large factorization — the scalable
+65k+ candidates is matmul work with no large factorization — the scalable
 batch-ask path (BASELINE config: 256-point Thompson batch over 65k
 candidates).
 
@@ -29,7 +29,7 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import solve_triangular
 
-from ..ops.pallas_gram import FusedSpec
+from ..ops.kernels import FusedSpec
 
 __all__ = ["sample_frequencies", "pathwise_samples"]
 
@@ -87,14 +87,11 @@ def pathwise_samples(
     coef = jnp.sqrt(2.0 * amp / n_features)
 
     def features(X):  # (n, d) -> (n, M)
-        return coef * jnp.cos(
-            jnp.matmul(X, omega.T, precision=jax.lax.Precision.HIGHEST)
-            + phase[None, :]
-        )
+        return coef * jnp.cos(_mm(X, omega.T) + phase[None, :])
 
     w = jax.random.normal(k_w, (n_features, n_samples), dtype=dt)
-    f0_train = features(data.X) @ w  # (n_pad, S)
-    f0_query = features(Xq) @ w  # (n_q, S)
+    f0_train = _mm(features(data.X), w)  # (n_pad, S)
+    f0_query = _mm(features(Xq), w)  # (n_q, S)
 
     eps = jnp.sqrt(noise + data.alpha_diag)[:, None] * jax.random.normal(
         k_eps, (data.X.shape[0], n_samples), dtype=dt
@@ -108,7 +105,14 @@ def pathwise_samples(
     )
 
     Kq = _cross_kernel(spec, theta, Xq, data.X) * data.mask[None, :]
-    return f0_query + Kq @ v
+    return f0_query + _mm(Kq, v)
+
+
+def _mm(a, b):
+    """Full-f32 matmul. ``v = K^-1 resid`` is large and oscillatory, so
+    ``Kq @ v`` is a near-cancelling sum that a reduced-precision (TF32)
+    product would swamp; the prior-feature products feed that residual."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _cross_kernel(spec: FusedSpec, theta, Xq, X):
@@ -154,34 +158,23 @@ def pathwise_topk_hyper(
     ``rows``: (S, n_theta [+ 2*n_warp]); returns (S, k) int32 indices.
     """
     from ..models import warping as wpm
-    from ..ops.pallas_gram import fused_masked_gram_batch
 
     S = rows.shape[0]
     n_gp = rows.shape[1] - 2 * n_warp
     thetas = rows[:, :n_gp]
-    n_real = jnp.sum(data.mask)
 
     if n_warp:
         Xb = jax.vmap(
             lambda x: wpm.warp(data.X, *wpm.split_warp_params(x, n_warp)[1:])
         )(rows)
-    else:
-        Xb = data.X
-
-    n_pad = data.X.shape[0]
-    if Xq.dtype == jnp.float32 and n_pad % 128 == 0:
-        Kp = fused_masked_gram_batch(
-            spec, thetas, Xb, data.alpha_diag, n_real
+        Kp = jax.vmap(lambda t, Xi: _fused_spec_gram(spec, t, Xi, data))(
+            thetas, Xb
         )
     else:
-        if n_warp:
-            Kp = jax.vmap(
-                lambda t, Xi: _fused_spec_gram(spec, t, Xi, data)
-            )(thetas, Xb)
-        else:
-            Kp = jax.vmap(
-                lambda t: _fused_spec_gram(spec, t, data.X, data)
-            )(thetas)
+        Xb = data.X
+        Kp = jax.vmap(lambda t: _fused_spec_gram(spec, t, data.X, data))(
+            thetas
+        )
     L = jnp.linalg.cholesky(Kp)  # (S, n_pad, n_pad)
 
     keys = jax.random.split(key, S)

@@ -17,8 +17,8 @@ with two collectives per step:
 
 The forward solve ``L⁻¹y`` is interleaved with the factorization (the
 y strip is updated like an extra trailing column), so the LML needs no
-separate distributed triangular solve. On multi-chip hardware the
-per-step all-gather rides ICI; comm volume is O(n²) total against
+separate distributed triangular solve. On a multi-GPU host the
+per-step all-gather rides NVLink; comm volume is O(n²) total against
 O(n³/P) compute.
 
 Masking follows :mod:`bask_tpu.ops.linalg` exactly (identity rows for
@@ -29,8 +29,8 @@ the reference's ValueError→-inf semantics
 (``/root/reference/bask/bayesgpr.py:373-379``).
 
 The reference has no distributed execution at all (single-process
-NumPy, SURVEY §2 absent-rows); this is the TPU-native scaling path for
-n beyond one chip's HBM. The default ``fori_loop`` sweep's trailing
+NumPy, SURVEY §2 absent-rows); this is the scaling path for n beyond
+one device's memory. The default ``fori_loop`` sweep's trailing
 update computes the full (n_loc, n) rectangle each step (~2× the
 trapezoid flops — the price of static shapes in a loop);
 ``unroll=True`` switches to a statically-indexed unrolled sweep that
@@ -149,7 +149,7 @@ def _sweep_strip(theta, X, Xq, y, alpha_diag, mask, *, kernel, ax,
     dynamic_slice) and — the point — the trailing Schur update touches
     only the remaining ``n − row0 − nb`` columns instead of computing
     the full (n_loc, n) rectangle and masking, halving the sweep's
-    flops and its HBM write traffic. Costs one HLO copy of the step
+    flops and its device-memory write traffic. Costs one HLO copy of the step
     per panel, so keep it for moderate step counts (n/nb ≲ 128);
     results match the loop path to float round-off.
     """
@@ -243,7 +243,7 @@ def _sweep_strip(theta, X, Xq, y, alpha_diag, mask, *, kernel, ax,
         )
 
         zy = Zk[:, 0]
-        quad = quad + jnp.sum(zy * zy)  # elementwise, not a bf16 dot
+        quad = quad + jnp.sum(zy * zy)  # elementwise, not a reduced-precision dot
         logdet = logdet + jnp.sum(jnp.log(jnp.diagonal(Lkk)))
         if m:
             Zq = Zk[:, 1:1 + m]
@@ -810,7 +810,7 @@ def walker_row_sharded_lml(
     (collectives as in :func:`row_sharded_lml`). This is the layout
     for ensembles at n too large for per-device grams but small enough
     that devices outnumber walkers' memory needs — e.g. 100 walkers ×
-    n=32k on a 4×4 v5e slice: 25 sequential row-sharded
+    n=32k on a 4×4 device mesh: 25 sequential row-sharded
     factorizations per 4-device row group instead of 100.
 
     The walker count must be divisible by the first axis size;

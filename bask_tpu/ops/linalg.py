@@ -1,4 +1,4 @@
-"""Masked/batched GP linear algebra (GPML Algorithm 2.1, TPU-first).
+"""Masked/batched GP linear algebra (GPML Algorithm 2.1).
 
 The reference computes one Cholesky + two triangular solves per
 log-marginal-likelihood call, serially per MCMC walker (reference
@@ -42,11 +42,11 @@ __all__ = [
 _LOG2PI = math.log(2.0 * math.pi)
 
 # The matmul-only blocked Cholesky (see fast_cholesky.py) is the default
-# float32 hot path for large padded grams: in the full MCMC program it
-# runs the north-star bench at 2.61s vs 4.54s with XLA's native
-# cholesky+triangular-solve (the matmul-only forward solve avoids the
-# latency-bound batched substitution). float64 / small problems stay on
-# the (bit-accurate vs LAPACK) XLA factorization.
+# float32 path for large padded grams: the forward solve is a few
+# batched matmuls instead of a latency-bound batched substitution.
+# float64 / small problems stay on the (bit-accurate vs LAPACK) XLA
+# factorization. Whether the recursion or the library Cholesky is faster
+# on the GPU is not measured yet.
 # Override: "on" / "off" / "auto" (auto = on for f32 when shapes allow).
 FAST_CHOLESKY = "auto"
 
@@ -98,7 +98,7 @@ def masked_lml(kernel, theta, X, y, alpha_diag, mask):
     ``y`` must be zero at padded entries. Returns a scalar. Uses the
     single-forward-solve form  y^T K^-1 y = |L^-1 y|^2  (one triangular
     solve instead of the two a cho_solve would need — triangular solves
-    are latency-bound on TPU).
+    are latency-bound).
     """
     Kp = masked_gram(kernel, theta, X, alpha_diag, mask)
     n = jnp.sum(mask)
@@ -111,21 +111,22 @@ def masked_lml(kernel, theta, X, y, alpha_diag, mask):
     L = masked_cholesky(Kp)
     w = solve_triangular(L, y, lower=True)
     lml = (
-        -0.5 * jnp.sum(w * w)  # elementwise, not a bf16-pass dot
+        -0.5 * jnp.sum(w * w)  # elementwise, not a reduced-precision dot
         - jnp.sum(jnp.where(mask, jnp.log(jnp.diagonal(L)), 0.0))
         - 0.5 * n * _LOG2PI
     )
     return jnp.where(jnp.isfinite(lml), lml, -jnp.inf)
 
 
-# HBM budget for one walker-batch of (chunk, n_pad, n_pad) grams: the
-# factorization holds roughly gram + factor + block inverses + panel
-# temps alive at once (~4x the gram bytes), so 2 GB of gram batch keeps
-# the working set near 8 GB — comfortable on a 16 GB v5e chip. Large-n
-# full ensembles (e.g. n=4096, W=100: 6.7 GB of grams alone) exceed it
-# and are split into equal walker chunks inside a lax.map — identical
-# per-walker results (each walker's gram/factorization/reductions are
-# independent), graceful memory instead of an OOM. The north-star shape
+# Device-memory budget for one walker-batch of (chunk, n_pad, n_pad)
+# grams: the factorization holds roughly gram + factor + block inverses
+# + panel temps alive at once (~4x the gram bytes), so 2 GB of gram
+# batch keeps the working set near 8 GB. Not measured on the H100 (80
+# GB); retuning it is an open item. Large-n full ensembles (e.g.
+# n=4096, W=100: 6.7 GB of grams alone) exceed it and are split into
+# equal walker chunks inside a lax.map — identical per-walker results
+# (each walker's gram/factorization/reductions are independent),
+# graceful memory instead of an OOM. The north-star shape
 # (100, 512, 512) is ~100 MB and never chunks.
 LML_MAX_BATCH_BYTES = 2_000_000_000
 
@@ -135,24 +136,8 @@ def _lml_chunk_walkers(n_pad: int, itemsize: int, W: int) -> int:
     return max(1, min(W, int(LML_MAX_BATCH_BYTES // per_walker)))
 
 
-def _lml_batch_direct(kernel, spec, thetas, X, y, alpha_diag, mask):
-    """One unchunked walker batch (fused Pallas gram or vmap fallback)."""
-    if spec is not None:
-        from . import pallas_gram as pg
-
-        n_real = jnp.sum(mask)
-        # LOWER_GRAM: the factorization reads only the lower triangle,
-        # so the symmetric-half kernel can skip the upper tiles (see
-        # pallas_gram.LOWER_GRAM; default picked by measurement)
-        if pg.LOWER_GRAM == "on" and X.shape[-2] % pg._SQ_TILE == 0:
-            Kp = pg.fused_masked_gram_lower_batch(
-                spec, thetas, X, alpha_diag, n_real
-            )
-        else:
-            Kp = pg.fused_masked_gram_batch(
-                spec, thetas, X, alpha_diag, n_real
-            )
-        return batched_lml_from_gram(Kp, y, mask)
+def _lml_batch_direct(kernel, thetas, X, y, alpha_diag, mask):
+    """One unchunked walker batch: vmapped masked gram + factorization."""
     if X.ndim == 3:
         return jax.vmap(
             lambda t, Xi: masked_lml(kernel, t, Xi, y, alpha_diag, mask)
@@ -165,28 +150,21 @@ def _lml_batch_direct(kernel, spec, thetas, X, y, alpha_diag, mask):
 def batched_lml(kernel, thetas, X, y, alpha_diag, mask, mesh=None):
     """LML for a batch of thetas: (W, n_theta) -> (W,).
 
-    Fast path: when the kernel matches the fusable
-    ``Constant*(Matern|RBF)[+White]`` structure and shapes/dtype allow,
-    the whole batch's masked grams come from one Pallas kernel
-    (:mod:`bask_tpu.ops.pallas_gram`) and the factorizations from one
-    batched Cholesky. ``X`` may be (n_pad, d) or per-walker
-    (W, n_pad, d) (input warping). Falls back to a vmapped scalar path.
+    The per-walker masked grams and factorizations are vmapped, so XLA
+    sees one batched gram and one batched factorization. ``X`` may be
+    (n_pad, d) or per-walker (W, n_pad, d) (input warping).
 
-    When the (W, n_pad, n_pad) gram batch would blow the HBM budget
+    When the (W, n_pad, n_pad) gram batch would blow the memory budget
     (``LML_MAX_BATCH_BYTES``), the walker axis is processed in equal
     chunks inside a ``lax.map`` — bit-identical results, bounded memory.
 
     ``mesh``: optional single-axis ``jax.sharding.Mesh``. The whole
     per-walker pipeline (gram -> factorization -> LML reduction) is then
-    wrapped in ``shard_map`` over the walker axis: each device runs the
-    Pallas gram kernel on its LOCAL walker shard. This is load-bearing
-    on multi-chip hardware — a ``pallas_call`` is a custom call that
-    GSPMD cannot partition, so under automatic sharding it would be
-    computed from gathered (replicated) operands instead of scaling
-    with the mesh. The per-walker results are identical either way (no
-    cross-walker reductions exist), and the HBM chunk budget naturally
-    applies to the per-device shard. The mesh size should divide the
-    walker count for even shards (``BayesGPR.sample(mesh=)`` rounds the
+    wrapped in ``shard_map`` over the walker axis: each device factorizes
+    its LOCAL walker shard, with no cross-device traffic (no
+    cross-walker reductions exist), and the memory chunk budget
+    naturally applies to the per-device shard. The mesh size should
+    divide the walker count for even shards (``BayesGPR.sample(mesh=)`` rounds the
     ensemble to multiples of 2x the device count; shard_map tolerates
     uneven shards by padding, but even shards keep every device busy).
     """
@@ -195,17 +173,11 @@ def batched_lml(kernel, thetas, X, y, alpha_diag, mask, mesh=None):
 
         ax = mesh.axis_names[0]
         xspec = P(ax, None, None) if X.ndim == 3 else P(None, None)
-        # check_vma=False: the local body contains a pallas_call, whose
-        # outputs carry no varying-mesh-axes annotation — the default
-        # replication check rejects it (measured on v5e-1; the CPU mesh
-        # tests never see it because the Pallas path is TPU-gated).
-        # The body has no collectives, so the check adds nothing here.
         fn = jax.shard_map(
             partial(_batched_lml_impl, kernel),
             mesh=mesh,
             in_specs=(P(ax, None), xspec, P(None), P(None), P(None)),
             out_specs=P(ax),
-            check_vma=False,
         )
         return fn(thetas, X, y, alpha_diag, mask)
     return _batched_lml_impl(kernel, thetas, X, y, alpha_diag, mask)
@@ -213,25 +185,10 @@ def batched_lml(kernel, thetas, X, y, alpha_diag, mask, mesh=None):
 
 def _batched_lml_impl(kernel, thetas, X, y, alpha_diag, mask):
     n_pad = X.shape[-2]
-    # any 64-multiple bucket: the Pallas gram picks the largest divisor
-    # tile (256 preferred, benchmarks/bench_gram_tile.py)
-    from .fast_cholesky import is_tpu_like_backend
-
-    fusable = (
-        X.dtype == jnp.float32
-        and n_pad % 64 == 0
-        and is_tpu_like_backend()
-    )
-    spec = None
-    if fusable:
-        from .pallas_gram import match_fusable
-
-        spec = match_fusable(kernel)
-
     W, D = thetas.shape
     chunk = _lml_chunk_walkers(n_pad, X.dtype.itemsize, W)
     if chunk >= W:
-        return _lml_batch_direct(kernel, spec, thetas, X, y, alpha_diag, mask)
+        return _lml_batch_direct(kernel, thetas, X, y, alpha_diag, mask)
 
     k = -(-W // chunk)
     pad = k * chunk - W
@@ -250,46 +207,16 @@ def _batched_lml_impl(kernel, thetas, X, y, alpha_diag, mask):
 
         out = jax.lax.map(
             lambda args: _lml_batch_direct(
-                kernel, spec, args[0], args[1], y, alpha_diag, mask
+                kernel, args[0], args[1], y, alpha_diag, mask
             ),
             (thetas_c, Xc),
         )
     else:
         out = jax.lax.map(
-            lambda t: _lml_batch_direct(
-                kernel, spec, t, X, y, alpha_diag, mask
-            ),
+            lambda t: _lml_batch_direct(kernel, t, X, y, alpha_diag, mask),
             thetas_c,
         )
     return out.reshape(-1)[:W]
-
-
-def batched_lml_from_gram(Kp, y, mask):
-    """(B, n, n) masked grams -> (B,) LMLs; one batched factorization."""
-    n = jnp.sum(mask)
-    if _use_fast_path(Kp):
-        from .fast_cholesky import fast_lml_terms
-
-        _, logdiag, quad = fast_lml_terms(Kp, jnp.broadcast_to(y, Kp.shape[:1] + y.shape))
-        lml = -0.5 * quad - logdiag - 0.5 * n * _LOG2PI
-        return jnp.where(jnp.isfinite(lml), lml, -jnp.inf)
-    L = jnp.linalg.cholesky(Kp)
-    w = solve_triangular(
-        L, jnp.broadcast_to(y, Kp.shape[:1] + y.shape)[..., None], lower=True
-    )[..., 0]
-    lml = (
-        -0.5 * jnp.sum(w * w, axis=-1)
-        - jnp.sum(
-            jnp.where(
-                mask[None, :],
-                jnp.log(jnp.diagonal(L, axis1=-2, axis2=-1)),
-                0.0,
-            ),
-            axis=-1,
-        )
-        - 0.5 * n * _LOG2PI
-    )
-    return jnp.where(jnp.isfinite(lml), lml, -jnp.inf)
 
 
 def augmented_quadform(L, l_cand, d_cand, A_sol, b):
@@ -325,7 +252,8 @@ def augmented_quadform(L, l_cand, d_cand, A_sol, b):
     """
     base = jnp.sum(A_sol * A_sol)  # sum_p |L^{-1} A_p^T|^2
     # (m, C): b_cp - (A_sol^T l_cand)_pc — near-cancelling difference
-    # then divided by d_cand: full f32 precision required (CLAUDE.md 5)
+    # then divided by d_cand: full f32 precision required (a TF32
+    # product keeps ~3 digits)
     resid = b - jnp.matmul(
         A_sol.T, l_cand, precision=jax.lax.Precision.HIGHEST
     )

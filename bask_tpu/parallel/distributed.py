@@ -1,7 +1,7 @@
 """Multi-host (multi-process) runtime: jax.distributed wiring + global mesh.
 
 The reference is strictly single-process (SURVEY.md §2 absent-rows: no
-NCCL/MPI/Gloo anywhere). The TPU-native scaling story past one host is:
+NCCL/MPI/Gloo anywhere). The scaling story past one host is:
 
 * ``init_distributed`` — opt-in `jax.distributed.initialize` wrapper
   (coordinator/process-count/process-id from args or the standard
@@ -11,17 +11,19 @@ NCCL/MPI/Gloo anywhere). The TPU-native scaling story past one host is:
 * ``global_walker_mesh`` — a 1-D mesh over the global devices. Walker
   ensembles and candidate grids shard across it exactly as on one host;
   the stretch move's complementary-half gather is the only collective
-  and rides ICI within a slice / DCN across slices.
+  and rides the intra-host interconnect (NVLink) within a host and the
+  network across hosts.
 * ``shard_global`` — build a process-spanning global array from a
   host-local copy (every process holds the same full array, e.g. the
   deterministic seeded walker init; each contributes its addressable
   shards).
 
-DCN-aware candidate sharding plan: candidate grids are embarrassingly
-parallel with *zero* cross-shard communication until the final argmax
-(one scalar+index all-reduce), so candidate shards should map to the
-outermost (DCN) mesh axis while walker ensembles — whose per-step gather
-is latency-sensitive — stay within an ICI slice: build a 2-D mesh
+Network-aware candidate sharding plan: candidate grids are
+embarrassingly parallel with *zero* cross-shard communication until the
+final argmax (one scalar+index all-reduce), so candidate shards should
+map to the outermost (cross-host) mesh axis while walker ensembles —
+whose per-step gather is latency-sensitive — stay within a host: build
+a 2-D mesh
 ``Mesh(devices.reshape(n_hosts, devs_per_host), ("cand", "walkers"))``
 and shard candidates on "cand", walkers on "walkers".
 """

@@ -13,7 +13,7 @@ SURVEY.md §3.1). Here the whole ensemble advances inside one
 * the walker axis is shardable: under a ``jax.sharding.Mesh`` the
   batched log-prob is pure data parallelism, and the only cross-walker
   communication is the complementary-half gather (an all-gather of a
-  (W/2, D) matrix — bytes, not megabytes — riding ICI).
+  (W/2, D) matrix — bytes, not megabytes — over the device interconnect).
 
 Detailed-balance notes: the stretch factor is z = ((a-1)u + 1)^2 / a
 with density g(z) ∝ 1/sqrt(z) on [1/a, a]; the acceptance factor is
@@ -265,8 +265,8 @@ def snooker_step(
 # REJECTED by measurement in round 5: on the real bimodal 17-D
 # north-star posterior, subspace-masked difference vectors cannot carry
 # walkers back across modes — de_cr+snooker mixtures split the ensemble
-# (R-hat pinned at 5-7 after 4800 steps vs demix's 1.095; BASELINE.md
-# round-5 ladder). Cut per the wins-or-cut bar.
+# (R-hat pinned at 5-7 after 4800 steps vs demix's 1.095 on the
+# north-star convergence ladder). Cut per the wins-or-cut bar.
 _MOVE_NAMES = ("stretch", "de", "snooker")
 
 # per-move tunable parameters accepted in a "name:key=val,..." spec
@@ -379,7 +379,7 @@ def make_step_fn(log_prob_fn: Callable, a: float = 2.0, moves=None):
     hashable jit static; each parameterization is a fixed reversible
     kernel, so mixtures of them remain valid random scans.
 
-    Tuning note (measured, BASELINE.md round 5): on the 17-dim
+    Tuning note (measured on the north-star ladder): on the 17-dim
     benchmark hyperposterior, raising DE's full-jump probability
     (``jump``) from the emcee default 0.1 to 0.25 COLLAPSED mixing
     (acceptance 0.24 -> 0.15, R-hat pinned at 2.3@4800 steps vs 1.095

@@ -1,10 +1,11 @@
 """Device-mesh helpers for sharding walker ensembles and candidate grids.
 
 The reference is single-process with no distributed backend (SURVEY.md §2
-absent-rows). The TPU-native scaling axes are the walker ensemble and the
+absent-rows). The scaling axes are the walker ensemble and the
 acquisition candidate grid: both are embarrassingly data-parallel, so the
 sharding story is one 1-D mesh axis, with XLA inserting the (tiny)
-complementary-half all-gather of the stretch move over ICI.
+complementary-half all-gather of the stretch move (over NVLink on a
+multi-GPU host).
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ def geometric_median(X, eps: float = 1e-5, max_iter: int = 200):
         nonzero = d > 0.0
         dinv = jnp.where(nonzero, 1.0 / jnp.where(nonzero, d, 1.0), 0.0)
         dinv_sum = jnp.sum(dinv)
-        T = (dinv @ X) / dinv_sum
+        T = jnp.matmul(dinv, X, precision=jax.lax.Precision.HIGHEST) / dinv_sum
         num_zeros = X.shape[0] - jnp.sum(nonzero)
         # Vardi-Zhang step when y sits on >=1 data points
         R = (T - y) * dinv_sum

@@ -6,7 +6,7 @@ is the in-memory ``pos_`` warm start. bask-tpu keeps that warm-start
 semantics AND adds explicit serialization: kernel specs, chain/walker
 state, observations, and RNG state round-trip through a single ``.npz``
 file, so a long BO run survives preemption — table stakes for
-production TPU jobs.
+production accelerator jobs.
 """
 
 from __future__ import annotations

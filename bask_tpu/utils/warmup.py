@@ -1,8 +1,8 @@
 """Ahead-of-time compile warmup for production BO loops.
 
-Remote TPU compiles take minutes per (bucket, n_steps) combination and
-the persistent compile cache is not reliable across processes
-(STATUS.md "Operational notes"). This helper pre-compiles every device
+Each (bucket, n_steps) combination compiles its own device programs,
+and a compile in the middle of a BO loop stalls it. This helper
+pre-compiles every device
 program a BO run will touch — ML-II value+grad, the MCMC chain, the
 posterior refresh, and the acquisition pass — for the padding buckets
 the run will traverse, so the loop itself never stalls mid-flight.

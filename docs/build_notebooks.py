@@ -95,8 +95,8 @@ SETUP = """
 import jax
 
 # This notebook was executed on the CPU backend for reproducibility.
-# On a TPU VM, delete the next line — JAX selects the TPU automatically
-# and every fit below runs the fused Pallas/blocked-Cholesky fast path.
+# On a GPU machine, delete the next line — JAX selects the GPU
+# automatically and every f32 fit below runs the blocked-Cholesky path.
 jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
@@ -176,7 +176,7 @@ can speak.
 Priors are written with `jax.numpy` so the whole MCMC log-probability
 stays on device. (SciPy-style priors ported from reference code also
 work unmodified — bask-tpu routes non-traceable callables through a
-host callback, at a throughput cost on TPU.)
+host callback, at a throughput cost on an accelerator.)
 """,
     ),
     (
@@ -559,9 +559,9 @@ print(f"95% HDI for the optimum location: {np.round(intervals[0], 3)}")
         "md",
         """
 Both diagnostics agree the optimum is essentially located — a longer
-run would mostly polish the last digits. On a TPU chip the whole loop
-above runs in a few seconds once the per-bucket programs are compiled
-(see `bask_tpu.utils.warmup.warmup_optimizer`).
+run would mostly polish the last digits. On an accelerator the
+per-bucket programs compile once (see
+`bask_tpu.utils.warmup.warmup_optimizer`) and the loop then reuses them.
 """,
     ),
 ]

@@ -1,8 +1,8 @@
 """Production BO loop: compile warmup + persistent executable cache.
 
-Remote TPU compiles cost minutes per program and XLA's compile cache is
-unreliable across processes; this example shows the two tools that make
-a production loop stall-free:
+Each padding bucket compiles its own device programs, and a compile in
+the middle of a loop stalls it; this example shows the two tools that
+make a production loop stall-free:
 
 1. ``enable_aot_cache(dir)`` — compiled executables persist on disk, so
    *every process after the first* loads them in milliseconds.

@@ -6,7 +6,7 @@ bask-tpu's defaults must not reproduce that silence:
 
 * ``BayesGPR(moves="auto")`` (the default) resolves to the measured
   fastest honest sampler the walker count supports (demix at W>=6, DE
-  at W>=4, stretch below — BASELINE.md round-4 convergence ladder).
+  at W>=4, stretch below — the north-star convergence ladder).
 * ``sample()/fit()`` warn at max split R-hat > 1.1 by default whenever
   the kept chain is long enough to judge (>= 4 kept steps).
 * ``Optimizer.tell``'s COLD fit samples to R-hat <= 1.1 by default

@@ -27,9 +27,10 @@ def test_block_cholesky_matches_xla(n):
 
 
 def test_pick_nb_policy():
-    """nb=128 up to n=512 (in-chain optimum), 256 beyond (measured 30%
-    win at n=2048, BASELINE.md); the last panel may be ragged, so every
-    64-multiple padding bucket qualifies."""
+    """nb=128 up to n=512, 256 beyond (each beat the other width in the
+    batched LML on an H100, ``benchmarks/bench_chol_variants.py``); the
+    last panel may be ragged, so every 64-multiple padding bucket
+    qualifies."""
     assert fc.pick_nb(512) == 128
     assert fc.pick_nb(576) == 256
     assert fc.pick_nb(640) == 256

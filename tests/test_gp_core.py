@@ -2,7 +2,7 @@
 
 Pins LML, predictive mean/std/cov, and the masked-padding invariance: the
 padded problem must produce bit-comparable results to the unpadded one
-(this is what lets the BO loop keep static shapes on TPU).
+(this is what lets the BO loop keep static shapes on the device).
 """
 
 import numpy as np

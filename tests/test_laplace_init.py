@@ -136,34 +136,24 @@ def test_laplace_warp_theta_block_no_fallback():
 
 
 def test_fd_fallback_when_hvp_nonfinite(monkeypatch):
-    """On v5e the second-order AD through the TPU Cholesky returned a
-    non-finite Hessian (r5b/r5c probes) while the first-order gradient
-    program is daily-validated there — the init must fall back to
-    central differences of the exact gradient and stay usable."""
+    """A non-finite Hessian makes the Laplace init decline (no
+    finite-difference substitute: the second-order AD is finite on the
+    CPU and on the GPU), and the fit falls through to the ball."""
     import jax.numpy as jnp
 
     gp = _fitted()
     priors = gp._resolve_priors(None)
     theta = np.asarray(gp._theta, dtype=float)
-    good = gp._laplace_positions(theta, 64, priors, 0)
+    assert gp._laplace_positions(theta, 64, priors, 0) is not None
 
     def bad_hessian(*a, **k):
         return jnp.full((theta.size, theta.size), np.nan)
 
     monkeypatch.setattr(bg, "_log_post_hessian", bad_hessian)
-    gp.random_state = np.random.RandomState(1)
-    pos = gp._laplace_positions(theta, 64, priors, 0)
-    assert pos is not None
-    # FD curvature must land close to the exact-HVP spreads
-    assert np.allclose(
-        pos.std(axis=0), np.asarray(good).std(axis=0), rtol=0.35, atol=0.02
-    )
-    lp = np.asarray(
-        bg._make_log_prob_batch(gp._spec, priors, None, 0, gp._data)(
-            jnp.asarray(pos, dtype=gp._dtype())
-        )
-    )
-    assert np.isfinite(lp).all()
+    assert gp._laplace_positions(theta, 64, priors, 0) is None
+    ball = _fitted()
+    assert np.isfinite(ball.chain_).all()
+    assert np.isfinite(ball.log_marginal_likelihood_value_)
 
 
 def test_invalid_chain_init_raises():

@@ -63,8 +63,8 @@ def fixed_gp():
     kernel = bk.ConstantKernel(1.0, (1e-4, 1.0)) * bk.RBF(1.0, (0.5, 1.5))
     gp = BayesGPR(kernel=kernel, normalize_y=False, random_state=1)
     # tiny real fit to establish kernel_/data/posterior state, then
-    # inject the deterministic chain fixture (the pattern VERDICT.md
-    # prescribes: fix chain_, and everything downstream is deterministic)
+    # inject a deterministic chain fixture: fix chain_, and everything
+    # downstream is deterministic
     gp.fit(
         X_TRAIN,
         Y_TRAIN,

@@ -56,26 +56,13 @@ def test_sharded_candidate_grid_matches_unsharded():
     assert int(best_sh) == int(best_ref)
 
 
-def test_sharded_candidates_through_fused_gram_precompute(monkeypatch):
-    """The marginalized per-draw path with the fused-gram precompute
-    engaged (interpret mode) must match unsharded values when the
-    candidate grid is mesh-sharded: the precompute's operands are
-    replicated, so GSPMD keeps the pallas call replicated and shards
-    only the downstream cross-gram/predict (gp.fused_marginal_grams
-    docstring)."""
-    import functools
-
-    import jax.experimental.pallas as pl
-
+def test_sharded_candidates_through_fused_gram_precompute():
+    """The marginalized per-draw path (one batched gram and
+    factorization for all draws) must match unsharded values when the
+    candidate grid is mesh-sharded: the per-draw training grams have
+    replicated operands, and GSPMD shards only the downstream
+    cross-gram/predict."""
     from bask_tpu import acquisition as acq
-    from bask_tpu.ops import fast_cholesky as fc
-    from bask_tpu.ops import pallas_gram as pg
-
-    monkeypatch.setattr(
-        pg.pl, "pallas_call",
-        functools.partial(pl.pallas_call, interpret=True),
-    )
-    monkeypatch.setattr(fc, "is_tpu_like_backend", lambda: True)
 
     rng = np.random.RandomState(1)
     n_pad, n_real, d, S = 64, 40, 2, 8

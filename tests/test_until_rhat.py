@@ -1,7 +1,6 @@
 """sample(until_rhat=...): sample-to-convergence by warm chunk
 extension. The library-level form of the measured convergence pattern
-(bench.py / benchmarks/bench_convergence.py; BASELINE.md round-4 moves
-ladder). The reference exposes no convergence control at all
+(bench.py / benchmarks/bench_convergence.py). The reference exposes no convergence control at all
 (``/root/reference/bask/bayesgpr.py:381-548``)."""
 
 import numpy as np
